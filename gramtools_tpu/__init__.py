@@ -1,10 +1,10 @@
-"""gramtools_tpu: a TPU-native genome-graph genotyping framework.
+"""gramtools_tpu: an accelerator-native genome-graph genotyping framework.
 
 Re-implements the capabilities of gramtools (iqbal-lab-org/gramtools):
 PRG construction, vBWT/FM-index build, quasimap (variant-aware backward
 search), coverage recording, level genotyping, VCF/jVCF output,
 personalised reference, simulate and discover -- designed from scratch
-for JAX/XLA on TPU, with host-side orchestration in Python and native
+for JAX/XLA on an NVIDIA GPU, with host-side orchestration in Python and native
 C++ for the build-time heavy lifting.
 
 Layering (bottom-up):

@@ -78,7 +78,7 @@ def _setup_genotype(common, subparsers):
                         default="auto",
                         help="Mapping engine: 'host' (scalar, reference "
                         "semantics), 'device' (batched JAX search on "
-                        "TPU/accelerator, host fallback for edge cases), or "
+                        "the GPU, host fallback for edge cases), or "
                         "'auto' (device when an accelerator backend is "
                         "present, host otherwise)")
 

@@ -1,7 +1,7 @@
 """`build` command: construct the PRG and its index artifacts.
 
 Parity: gramtools/commands/build/build.py + command_setup.py, with the
-index build running in-process (no subprocess boundary: the native/TPU
+index build running in-process (no subprocess boundary: the native/device
 backend is this package).
 """
 from __future__ import annotations

@@ -117,15 +117,12 @@ def _execute_genotype(geno_report, action, geno_paths, args, kmer_size):
     log.info("Mapping stats: %s", stats.as_dict())
     process_report = collections.OrderedDict(
         [("mapping_stats", stats.as_dict())])
+    process_report.update(_engine_device(engine_choice, engine))
     if engine is not None:
-        process_report["engine"] = {
-            "device_mapped": engine.device_mapped,
-            "host_fallbacks": engine.host_fallbacks,
-            "device_retried": getattr(engine, "device_retried", 0),
-        }
+        process_report["engine"] = engine.run_summary()
         log.info("Engine: %d device-mapped, %d host fallbacks, %d retried",
                  engine.device_mapped, engine.host_fallbacks,
-                 getattr(engine, "device_retried", 0))
+                 engine.device_retried)
     geno_report["processes"][action] = process_report
 
     with timer.phase("Coverage dumps"):
@@ -160,6 +157,24 @@ def _execute_genotype(geno_report, action, geno_paths, args, kmer_size):
         tracker.reset()
         write_vcf(idx, sites, tracker, args.sample_id, geno_paths.geno_vcf)
     timer.report()
+
+
+def _engine_device(engine_choice: str, engine) -> dict:
+    """Which engine mapped the reads and on what device: the JAX
+    platform and device kind of the device engine's first device, or
+    the host CPU for the scalar host engine (which never touches JAX)."""
+    if engine is None:
+        return {"mapping_engine": engine_choice, "platform": "cpu",
+                "device_kind": "host", "device_count": 1}
+    if engine.mesh is not None:
+        devices = list(engine.mesh.devices.flat)
+    else:
+        import jax
+        devices = jax.devices()[:1]
+    return {"mapping_engine": engine_choice,
+            "platform": devices[0].platform,
+            "device_kind": devices[0].device_kind,
+            "device_count": len(devices)}
 
 
 @report.with_report

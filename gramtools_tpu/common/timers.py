@@ -6,7 +6,7 @@ construction (src/prg/make_data_structures.cpp:12-29): each phase
 records its peak RSS alongside wall time (Linux VmHWM, reset per phase
 via /proc/self/clear_refs when writable; falls back to the monotone
 high-water mark otherwise). Extended with a jax.profiler trace hook for
-TPU kernel inspection.
+device kernel inspection.
 """
 from __future__ import annotations
 

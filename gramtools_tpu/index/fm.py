@@ -1,7 +1,7 @@
 """FM-index over the linearised PRG, as dense device-friendly arrays.
 
 Re-design of the reference's sdsl `csa_wt` wavelet-tree index
-(include/common/data_types.hpp:33-37) for TPU consumption:
+(include/common/data_types.hpp:33-37) for device consumption:
 
   * ``sa``        int32[n]  -- full suffix array (the reference also
                               stores the full SA: sampling density 1)

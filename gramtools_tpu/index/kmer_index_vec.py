@@ -356,7 +356,7 @@ class ArrayKmerIndex:
         record path keeps the state payloads RESIDENT on device
         (record_jax.SeedTables) and gathers them by sidx there, so the
         host neither gathers nor ships the (n, P, 2) path arrays
-        (~22MB/buffer through a ~25MB/s relay link)."""
+        (~22MB per throughput buffer)."""
         return self._seed_indices(last_kmers)
 
     def seed_batch(self, last_kmers: np.ndarray):

@@ -8,7 +8,7 @@ Semantics ported from libgramtools:
 
 The mutable coverage lives in dense arrays (the graph's flat per-base
 array, per-site allele-sum lists); no atomics are needed because each
-shard accumulates privately and shards merge by addition (psum on TPU).
+shard accumulates privately and shards merge by addition (psum across devices).
 """
 from __future__ import annotations
 

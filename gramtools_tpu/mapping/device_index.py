@@ -1,4 +1,4 @@
-"""Device-staged index tables + shape helpers (TPU-first).
+"""Device-staged index tables + shape helpers.
 
 ``DeviceIndex`` stages the FM-index occ/SA tables, the marker-rank ->
 jump-locus table and the jump-outcome tables (mapping/jump_table.py) as

@@ -6,8 +6,8 @@
 // libgramtools/src/genotype/quasimap/quasimap.cpp:90-117 via
 // coverage/common.cpp; here it is a host-side pre-filter feeding the
 // device engine). The NumPy Horner slide costs ~160 ms per 20k-read
-// buffer -- on the device-engine critical path, host submit time adds
-// 1:1 to e2e wall time through the lazy relay (docs/SCAN_LATENCY.md).
+// buffer, and host submit time is on the device engine's critical
+// path.
 // This kernel fuses revcomp + windowed rolling-code + bitmap lookup
 // with early exit, OpenMP over rows.
 #include <cstdint>

@@ -1,25 +1,11 @@
-"""MXU-blocked prefix sums: cumsum as two small matmuls.
+"""Exact int32 prefix sums for the vBWT scan step.
 
-The vBWT scan step (mapping/search_jax_log.py) is latency-bound on
-SEQUENTIAL DEVICE ROUNDS, not bandwidth or FLOPs (docs/SCAN_LATENCY.md):
-its three prefix operations (hit-slot assignment, hit ownership, dense
-repack) each cost log2(N) ~ 17 dependent passes when lowered from
-``jnp.cumsum`` / ``associative_scan``. A prefix sum is also a matmul
-against a triangular ones matrix -- and the MXU does a 512-wide
-triangular matmul in ONE pass. Blocked form:
-
-    x (N,) -> xb (nb, B);  within-block inclusive prefix = xb @ triu(B,B)
-    block totals = last column; their EXCLUSIVE prefix = tot @ strict_triu
-    out = within-block prefix + broadcast block offsets
-
-Two matmuls + one fused add ~ 3 device rounds for any N up to millions.
-
-Exactness: accumulation is float32, exact for integer values < 2**24.
-Callers must guarantee per-block sums and all *consumed* prefix values
-stay under 2**24 (the scan's uses do: repack flags sum to the pool size
-<= ~2e5; hit counts are consumed only where the prefix is below the
-per-step hit budget G <= ~2e4 -- larger prefixes round to large values
-and stay above G, which is all the consumer needs).
+The scan step (mapping/search_jax_log.py) takes three kinds of prefix
+sum per step: hit-slot assignment over per-state marker counts, hit
+ownership, and the dense repack of survivors and newborns. Every value
+they produce is an index, so they must be exact: an int32 ``cumsum`` is
+exact up to 2**31, where a float matmul formulation is not (a float32
+matmul may run in TF32 on the GPU, which keeps 11 significant bits).
 """
 from __future__ import annotations
 
@@ -28,48 +14,17 @@ import numpy as np
 import jax.numpy as jnp
 
 
-def mm_cumsum(x, block: int = 512, exclusive: bool = False):
-    """Prefix sum along the LAST axis via MXU-blocked matmuls.
-
-    x: int/bool array, any leading batch dims. Returns int32 (inclusive
-    by default). Exact while every consumed prefix value < 2**24.
-
-    GRAMTOOLS_TPU_PREFIX=log selects plain jnp.cumsum instead (A/B knob:
-    the r4 A/B at 4k batches had the log-depth form ~7% faster; the
-    matmul form is kept for larger pools).
-    """
-    import os
-    if os.environ.get("GRAMTOOLS_TPU_PREFIX") == "log":
-        out = jnp.cumsum(x.astype(jnp.int32), axis=-1)
-        if exclusive:
-            out = out - x.astype(jnp.int32)
-        return out
-    orig_shape = x.shape
-    n = orig_shape[-1]
-    lead = orig_shape[:-1]
-    x2 = x.reshape((-1, n)).astype(jnp.float32)      # (C, n)
-    C = x2.shape[0]
-    nb = -(-n // block)
-    pad = nb * block - n
-    if pad:
-        x2 = jnp.pad(x2, ((0, 0), (0, pad)))
-    xb = x2.reshape(C * nb, block)
-    # within-block inclusive prefix: one (C*nb, B) @ (B, B) matmul
-    triu = jnp.triu(jnp.ones((block, block), jnp.float32))
-    pref = xb @ triu                                  # (C*nb, B)
-    # exclusive prefix of block totals, per channel: (C, nb) @ (nb, nb)
-    tot = pref[:, -1].reshape(C, nb)
-    striu = jnp.triu(jnp.ones((nb, nb), jnp.float32), k=1)
-    off = tot @ striu                                 # (C, nb)
-    out = pref.reshape(C, nb, block) + off[:, :, None]
-    out = out.reshape(C, nb * block)[:, :n]
-    if exclusive:
-        out = out - x2[:, :n]
-    return out.astype(jnp.int32).reshape(lead + (n,))
+def prefix_sum(x, exclusive: bool = False):
+    """Prefix sum along the LAST axis; any leading batch dims are summed
+    independently. x: int/bool array. Returns int32, inclusive by
+    default."""
+    x = x.astype(jnp.int32)
+    out = jnp.cumsum(x, axis=-1)
+    return out - x if exclusive else out
 
 
-def mm_cumsum_np(x, exclusive: bool = False):
-    """Numpy twin (exact int64) for tests."""
+def prefix_sum_np(x, exclusive: bool = False):
+    """Numpy twin (exact int64 accumulation) for tests."""
     c = np.cumsum(x.astype(np.int64), axis=-1)
     if exclusive:
         c = c - x.astype(np.int64)

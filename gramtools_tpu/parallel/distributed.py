@@ -1,17 +1,17 @@
-"""Multi-host initialisation for pod-slice runs.
+"""Multi-process initialisation for runs that span several hosts.
 
 The reference has no distributed backend (SURVEY §2.3); this build's
 scale-out is JAX-native: initialise the distributed runtime once per
-host, then `make_mesh()` sees every chip in the slice and the sharded
-quasimap (`mesh.py`) runs data-parallel with psum coverage merges over
-ICI (intra-slice) without further code changes.
+process, then `make_mesh()` sees every GPU of every process and the
+sharded quasimap (`mesh.py`) runs data-parallel with psum coverage
+merges (NCCL) without further code changes.
 
-Typical multi-host launch (same command on every host):
+Typical launch (same command in every process, one process per host):
 
     from gramtools_tpu.parallel.distributed import init_distributed
-    init_distributed()             # reads cluster env (TPU pods: automatic)
-    mesh = make_mesh()             # all chips of the slice
-    ... run_sharded_flat_quasimap(mesh, ...)
+    init_distributed("host0:12345", num_processes=2, process_id=rank)
+    mesh = make_mesh()             # all GPUs of all processes
+    ... MeshLogEngine(idx, k, mesh=mesh)
 
 After the mapping + psum pass, every host holds the globally-reduced
 coverage; rank 0 runs the (host-side) genotyping + output phase, which
@@ -28,8 +28,9 @@ log = logging.getLogger("gramtools_tpu")
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None):
-    """jax.distributed.initialize with optional explicit topology; on TPU
-    pods the arguments are discovered from the environment."""
+    """jax.distributed.initialize with an explicit topology. On a plain
+    GPU host nothing describes the cluster, so pass all three arguments;
+    under a cluster manager JAX can discover them from its environment."""
     import jax
 
     kwargs = {}

@@ -3,7 +3,7 @@ coverage merged per shard with no locks.
 
 The reference's scaling story is OpenMP threads over a 5,000-read buffer
 with atomic coverage updates (quasimap.cpp:90-117, SURVEY §2.3). The
-TPU-native equivalent: the vBWT index is replicated across the mesh,
+device equivalent: the vBWT index is replicated across the mesh,
 each buffer's (read, orientation) rows round-robin over the 'data' axis,
 every shard runs the identical phased genealogy-log scan + fused
 device-side selection/recording (mapping/search_jax_log.py +
@@ -28,10 +28,7 @@ import numpy as np
 
 import jax
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..mapping.device_index import DeviceIndex
 from ..mapping.search_jax_log import LogBatchedEngine

@@ -16,7 +16,7 @@ occ row gather becomes
 
 -- each row is owned by exactly one shard, so the psum reconstructs the
 full gather. Queries stay replicated (they are KB-scale; the table is
-the thing that cannot be), so the collective rides ICI once per gather.
+the thing that cannot be), so one collective runs per gather.
 This composes with data parallelism: a ("data", "idx") mesh shards reads
 over "data" and the index over "idx"; coverage psums over "data"
 (parallel/mesh.py) are unchanged.
@@ -34,10 +34,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..mapping.device_index import DeviceIndex
 from ..mapping.search_jax_log import (

@@ -7,7 +7,7 @@ as an index-based structure-of-arrays:
     edge index list, coverage array slice bounds)
   * one flat ``coverage`` uint16 array spanning all in-bubble bases --
     coverage recording becomes a segment-sum over flat indices, which is
-    what the TPU reduction path consumes (no atomics)
+    what the device reduction path consumes (no atomics)
   * ``bubbles``: (entry_node, exit_node) pairs ordered child-first
     (comparator parity: coverage_graph.cpp:381-389)
   * ``par_map``: site -> (parent site, parent haplogroup)

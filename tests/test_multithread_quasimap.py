@@ -56,3 +56,21 @@ def test_no_fork_after_jax_init(tmp_path):
     multi = run(tmp_path / "b", 2)
     assert single[0] == multi[0]
     assert np.array_equal(single[3], multi[3])
+
+
+def test_spawned_workers_open_no_jax_backend():
+    """Spawned workers unpickle an index the device engine has already
+    used, and must not open a JAX backend doing so: on a GPU machine a
+    second process on the card fails for want of device memory."""
+    from gramtools_tpu.mapping import quasimap
+    from gramtools_tpu.mapping.search_jax_log import LogBatchedEngine
+
+    idx = build_prg_index(PrgString(prg_string_to_ints(PRG)))
+    kmer_index = build_kmer_index(idx, 4)
+    LogBatchedEngine(idx, 4)
+    assert quasimap._jax_backend_live()
+    pool = quasimap._make_pool(2, idx, kmer_index, 4)
+    try:
+        assert pool.apply(quasimap._jax_backend_live) is False
+    finally:
+        pool.terminate()

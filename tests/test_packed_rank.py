@@ -1,6 +1,6 @@
 """Packed-BWT rank (ops/rank.py) vs the dense occ prefix table: the
-numpy oracle, the jnp twin, and the Pallas kernel (interpret mode on
-CPU) must all be bit-equal to fm.occ gathers on every prefix length.
+numpy oracle and the jnp twin must be bit-equal to fm.occ gathers on
+every prefix length, for every query shape the engine uses.
 """
 import numpy as np
 import pytest
@@ -42,23 +42,24 @@ def test_packed_occ_np_matches_dense(seed):
         fm.marker_prefix[np.minimum(blk_starts[valid], fm.size)])
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_packed_occ_device_twins(use_pallas):
+@pytest.mark.parametrize("shape", ["flat", "grid", "end"])
+def test_packed_occ_device_twins(shape):
+    """The engine queries with (N,) and (G, B) row arrays; "end" puts
+    the row i = n (prefix of the whole BWT) and rows past it, which
+    clip to n, into the query."""
     rng = np.random.RandomState(7)
     fm = FMIndex.build(_random_prg_ints(rng, n_sites=3, seq_len=60))
     blocks = build_packed_occ(fm)
-    rows = rng.randint(0, fm.size + 1, size=300).astype(np.int32)
-    occ_rows = make_packed_occ_rows(
-        jnp.asarray(blocks), fm.size, use_pallas=use_pallas,
-        interpret=use_pallas)  # interpret: no TPU in the test env
+    rows = rng.randint(0, fm.size + 1, size=256).astype(np.int32)
+    if shape == "end":
+        rows[:3] = [fm.size, fm.size + 5, fm.size - 1]
+    if shape == "grid":
+        rows = rows.reshape(16, 16)
+    occ_rows = make_packed_occ_rows(jnp.asarray(blocks), fm.size)
     got = np.asarray(jax.jit(occ_rows)(jnp.asarray(rows)))
+    assert got.shape == rows.shape + (4,)
     want = np.ascontiguousarray(fm.occ.T)[np.clip(rows, 0, fm.size)]
     np.testing.assert_array_equal(got, want)
-    # arbitrary query shapes (the engine calls with (N,), (G,B))
-    rows2 = rows[:256].reshape(16, 16)
-    got2 = np.asarray(occ_rows(jnp.asarray(rows2)))
-    assert got2.shape == (16, 16, 4)
-    np.testing.assert_array_equal(got2.reshape(-1, 4), want[:256])
 
 
 @pytest.mark.parametrize("prg_choice", ["hard1", "hard2", "random"])
@@ -66,6 +67,13 @@ def test_log_engine_packed_rank_matches_host(prg_choice, monkeypatch):
     """The production log engine with GRAMTOOLS_TPU_RANK=packed must
     produce the same SearchStates as the host oracle (the same assertion
     test_search_jax.py makes for the dense rank)."""
+    check_log_engine_matches_host(prg_choice, "packed", monkeypatch)
+
+
+def check_log_engine_matches_host(prg_choice, rank, monkeypatch):
+    """LogBatchedEngine.search_buffer with the given rank implementation
+    vs the scalar host search, read by read (also run on the GPU by
+    test_gpu_device.py)."""
     from gramtools_tpu.index.build import build_prg_index
     from gramtools_tpu.index.kmer_index import build_kmer_index
     from gramtools_tpu.mapping.search import search_read_backwards
@@ -84,9 +92,10 @@ def test_log_engine_packed_rank_matches_host(prg_choice, monkeypatch):
     idx = build_prg_index(prg)
     k = 3
     kmer_index = build_kmer_index(idx, k)
-    monkeypatch.setenv("GRAMTOOLS_TPU_RANK", "packed")
+    monkeypatch.setenv("GRAMTOOLS_TPU_RANK", rank)
     engine = LogBatchedEngine(idx, k, LogConfig(pool=256, hits=64))
-    assert engine.rank == "packed" and engine.blocks is not None
+    assert engine.rank == rank
+    assert (engine.blocks is not None) == (rank == "packed")
 
     reads = [rng.randint(1, 5, size=rng.randint(k, 12)).astype(np.uint8)
              for _ in range(30)]
